@@ -36,17 +36,16 @@ def main():
     args = ap.parse_args()
 
     ndev = len(jax.devices())
-    from pinocchio_tpu.config import read_parameter_file
-    from pinocchio_tpu.cosmology import Cosmology
-    from pinocchio_tpu.fragment.subbox import (choose_nbox,
+    from pinocchio_jax.config import HMF_VALIDATION, read_parameter_file
+    from pinocchio_jax.cosmology import Cosmology
+    from pinocchio_jax.fragment.subbox import (choose_nbox,
                                                subbox_geometries)
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
-    from pinocchio_tpu.parallel import pfft
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
-    from pinocchio_tpu.parallel.exchange import exchange_products
+    from pinocchio_jax.io.catalogs import largest_halo_mass
+    from pinocchio_jax.parallel import pfft
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.parallel.exchange import exchange_products
 
-    p = read_parameter_file("/root/reference/HMF_Validation/parameter_file",
-                            norad=True, plc_enabled=False)
+    p = read_parameter_file(HMF_VALIDATION, norad=True, plc_enabled=False)
     p.GridSize = args.grid
     cosmo = Cosmology(p)
     mesh = pfft.make_mesh(ndev)

@@ -30,8 +30,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pinocchio_tpu.config import read_parameter_file   # noqa: E402
-from pinocchio_tpu.cosmology import Cosmology          # noqa: E402
+from pinocchio_jax.config import read_parameter_file   # noqa: E402
+from pinocchio_jax.cosmology import Cosmology          # noqa: E402
 
 
 def main(argv=None):

@@ -3,7 +3,7 @@
 layout and recompute the derived products each host could not write
 alone (mass functions, PLC n(z)).
 
-Multi-host runs (`python -m pinocchio_tpu.run ... --hosts N --host-id i`)
+Multi-host runs (`python -m pinocchio_jax.run ... --hosts N --host-id i`)
 write `pinocchio.<z>.<run>.catalog.out.<host>` (and .histories/.plc)
 chunks — the collector-scheme file layout of the reference
 (write_halos.c:194-225) with one chunk per host.  This tool:
@@ -86,11 +86,11 @@ def main(argv=None):
     jax.config.update("jax_platforms", "cpu")
     import numpy as np
 
-    from pinocchio_tpu.config import read_parameter_file
-    from pinocchio_tpu.cosmology import Cosmology
-    from pinocchio_tpu.fragment.driver import CatalogSnapshot
-    from pinocchio_tpu.io import readers
-    from pinocchio_tpu.io.catalogs import compute_mf, largest_halo_mass
+    from pinocchio_jax.config import read_parameter_file
+    from pinocchio_jax.cosmology import Cosmology
+    from pinocchio_jax.fragment.driver import CatalogSnapshot
+    from pinocchio_jax.io import readers
+    from pinocchio_jax.io.catalogs import compute_mf, largest_halo_mass
 
     params = read_parameter_file(args.paramfile)
     cosmo = Cosmology(params)
@@ -127,7 +127,7 @@ def main(argv=None):
 
     # timeless snapshot: assemble per-host npz chunks into the
     # canonical Gadget file (byte-identical to a single-host write)
-    from pinocchio_tpu.io.snapshot import merge_timeless_chunks
+    from pinocchio_jax.io.snapshot import merge_timeless_chunks
     snap = merge_timeless_chunks(params, args.dir, keep=args.keep)
     if snap:
         merged.append(snap)
@@ -137,7 +137,7 @@ def main(argv=None):
     plc_path = os.path.join(args.dir,
                             f"pinocchio.{params.RunFlag}.plc.out")
     if os.path.exists(plc_path) and params.plc_enabled:
-        from pinocchio_tpu.plc import build_plc_geometry, write_nz
+        from pinocchio_jax.plc import build_plc_geometry, write_nz
         geom = build_plc_geometry(params, cosmo, verbose=False)
         if geom is not None and geom.enabled:
             rec = readers.read_plc(plc_path)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Convert pinocchio-tpu (or reference) outputs to FITS and validate.
+"""Convert pinocchio-jax (or reference) outputs to FITS and validate.
 
 Analog of the reference's scripts/Pinocchio2fits.py + ValidateFits.py:
 converts catalog / histories / plc files (ascii or fortran-unformatted
@@ -20,8 +20,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pinocchio_tpu.io import fits as pfits          # noqa: E402
-from pinocchio_tpu.io import readers                # noqa: E402
+from pinocchio_jax.io import fits as pfits          # noqa: E402
+from pinocchio_jax.io import readers                # noqa: E402
 
 
 def convert_plc_to_fits(path, params=None, outdir=None):
@@ -29,7 +29,7 @@ def convert_plc_to_fits(path, params=None, outdir=None):
     extra = [("NHALOS", len(rec), "Number of halos on the light cone")]
     out = pfits._fits_path(path, outdir)
     return pfits.write_fits(out, [("PLC", rec, extra)],
-                            primary_cards=[("CODE", "pinocchio-tpu", "")])
+                            primary_cards=[("CODE", "pinocchio-jax", "")])
 
 
 def validate(fits_path, original_path):
@@ -71,7 +71,7 @@ def main(argv=None):
 
     params = None
     if args.paramfile:
-        from pinocchio_tpu.config import read_parameter_file
+        from pinocchio_jax.config import read_parameter_file
         params = read_parameter_file(args.paramfile)
 
     status = 0

@@ -2,7 +2,7 @@
 """3-D visualization of the past-light-cone box tiling.
 
 Analog of the reference's scripts/PlcGeometryplot_3D.py: parses a
-pinocchio.<run>.geometry.out file (written by pinocchio_tpu.plc) and
+pinocchio.<run>.geometry.out file (written by pinocchio_jax.plc) and
 draws every box replication that intersects the cone, the cone axis,
 and the aperture, saving a PNG next to the input.
 

@@ -16,8 +16,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pinocchio_tpu.config import read_parameter_file
-from pinocchio_tpu.io.readers import read_catalog, read_mf, read_plc
+from pinocchio_jax.config import read_parameter_file
+from pinocchio_jax.io.readers import read_catalog, read_mf, read_plc
 
 
 def main():
@@ -35,7 +35,7 @@ def main():
     mf = read_mf(os.path.join(d, f"pinocchio.{z:6.4f}.{run}.mf.out"))
     sel = mf[:, 4] > 0
     fig, ax = plt.subplots(figsize=(6, 4.5))
-    ax.loglog(mf[sel, 0], mf[sel, 1], "o", ms=3, label="pinocchio-tpu")
+    ax.loglog(mf[sel, 0], mf[sel, 1], "o", ms=3, label="pinocchio-jax")
     ax.loglog(mf[:, 0], mf[:, 5], "-", label="analytic fit")
     ax.set_xlabel("M [Msun]")
     ax.set_ylabel("n(M) [Mpc^-3 Msun^-1]")

@@ -9,7 +9,7 @@ histories) checks that
   * the FITS file exists and parses,
   * the row counts match the header cards (NHALOS / NTREES / NBRANCH),
   * every table column compares bit-for-bit against the original binary
-    or ascii .out file read back through pinocchio_tpu.io.readers.
+    or ascii .out file read back through pinocchio_jax.io.readers.
 
 Exit status = number of errors found.
 
@@ -26,9 +26,9 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from pinocchio_tpu.config import read_parameter_file      # noqa: E402
-from pinocchio_tpu.io import fits as pfits                # noqa: E402
-from pinocchio_tpu.io import readers                      # noqa: E402
+from pinocchio_jax.config import read_parameter_file      # noqa: E402
+from pinocchio_jax.io import fits as pfits                # noqa: E402
+from pinocchio_jax.io import readers                      # noqa: E402
 
 
 def _compare_columns(rec, fits_rec, label):

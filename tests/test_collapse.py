@@ -70,7 +70,7 @@ def random_tensors():
 
 def test_eigenvalues_match_numpy(random_tensors):
     import jax.numpy as jnp
-    from pinocchio_tpu.ops.collapse import eigenvalues_descending
+    from pinocchio_jax.ops.collapse import eigenvalues_descending
     d = random_tensors
     l1, l2, l3, fail = eigenvalues_descending(
         jnp.asarray(d.T, jnp.float32))
@@ -85,7 +85,7 @@ def test_eigenvalues_match_numpy(random_tensors):
 
 def test_ell_classic_matches_reference_impl(random_tensors):
     import jax.numpy as jnp
-    from pinocchio_tpu.ops.collapse import ell_classic
+    from pinocchio_jax.ops.collapse import ell_classic
     ref_l = np.sort(random_tensors[:, :3], axis=1)[:, ::-1]
     mine = np.asarray(ell_classic(jnp.asarray(ref_l[:, 0], jnp.float32),
                                   jnp.asarray(ref_l[:, 1], jnp.float32),
@@ -123,7 +123,7 @@ def test_spherical_limit():
     """For a spherical perturbation the collapse delta_c should be close to
     1.686 (the -0.364 correction term enforces this, Monaco 1996a)."""
     import jax.numpy as jnp
-    from pinocchio_tpu.ops.collapse import ell_classic
+    from pinocchio_jax.ops.collapse import ell_classic
     delta = 1.0
     lam = jnp.float32(delta / 3.0)
     bc = float(ell_classic(lam, lam, lam))
@@ -133,7 +133,7 @@ def test_spherical_limit():
 
 def test_inverse_growth_roundtrip_device(hmf_validation_cosmology):
     import jax.numpy as jnp
-    from pinocchio_tpu.ops.collapse import (make_inverse_growth_table,
+    from pinocchio_jax.ops.collapse import (make_inverse_growth_table,
                                             uniform_lookup)
     c = hmf_validation_cosmology
     tab, (lo, dx) = make_inverse_growth_table(c)

@@ -10,7 +10,7 @@ def test_sng_spherical_limit(hmf_validation_cosmology):
     """Spherical triaxial collapse must reproduce delta_c ~ 1.686: the SNG
     ODE's F for lambda_i = delta/3 should satisfy D(z_c) * delta ~ 1.686
     within a few percent (Nadkarni-Ghosh & Singhal 2016)."""
-    from pinocchio_tpu.ops.sng import ell_sng_F
+    from pinocchio_jax.ops.sng import ell_sng_F
     c = hmf_validation_cosmology
     # delta must exceed 1.686/D(a->inf): in this LCDM growth saturates
     # near ~1.3, so delta=1.2 correctly never collapses
@@ -28,7 +28,7 @@ def test_sng_spherical_limit(hmf_validation_cosmology):
 
 
 def test_sng_no_collapse_for_voids(hmf_validation_cosmology):
-    from pinocchio_tpu.ops.sng import ell_sng_F
+    from pinocchio_jax.ops.sng import ell_sng_F
     c = hmf_validation_cosmology
     D_in = float(c.GrowingMode(1.0 / 1.e-5 - 1.0))
     F = ell_sng_F(np.array([-0.5]), np.array([-0.6]), np.array([-0.7]),
@@ -37,7 +37,7 @@ def test_sng_no_collapse_for_voids(hmf_validation_cosmology):
 
 
 def test_delta_sampling_properties():
-    from pinocchio_tpu.ops.tabulated import (CT_DELTA0, CT_NBINS_D,
+    from pinocchio_jax.ops.tabulated import (CT_DELTA0, CT_NBINS_D,
                                              CT_RANGE_D, delta_sampling)
     dv = delta_sampling()
     assert len(dv) == CT_NBINS_D
@@ -52,8 +52,8 @@ def test_delta_sampling_properties():
 def test_tabulated_matches_classic(hmf_validation_cosmology):
     """Interpolated table F vs direct classic F on random eigenvalues."""
     import jax.numpy as jnp
-    from pinocchio_tpu.ops import tabulated
-    from pinocchio_tpu.ops.collapse import ell_classic
+    from pinocchio_jax.ops import tabulated
+    from pinocchio_jax.ops.collapse import ell_classic
     c = hmf_validation_cosmology
     ampl = 1.3
     flat = tabulated.build_ct_table(c, ampl, model="classic")
@@ -87,7 +87,7 @@ def test_tabulated_matches_classic(hmf_validation_cosmology):
 
 def _small_ct(cosmo, ampl=1.3):
     import jax.numpy as jnp
-    from pinocchio_tpu.ops import tabulated
+    from pinocchio_jax.ops import tabulated
     flat = tabulated.build_ct_table(cosmo, ampl, model="classic")
     tab = flat.reshape(tabulated.CT_NBINS_XY, tabulated.CT_NBINS_XY,
                        tabulated.CT_NBINS_D).astype(np.float32)
@@ -107,7 +107,7 @@ def test_ct_interp_node_parity(hmf_validation_cosmology):
     reproduce the table values exactly at the table nodes — splines and
     the trilinear lookup all pass through the control points."""
     import jax.numpy as jnp
-    from pinocchio_tpu.ops import tabulated
+    from pinocchio_jax.ops import tabulated
     tab, tab2, dv, idx_map, ampl = _small_ct(hmf_validation_cosmology)
     rng = np.random.default_rng(11)
     ids = rng.integers(1, tabulated.CT_NBINS_D - 1, 200)
@@ -133,8 +133,8 @@ def test_ct_interp_variants_agree_off_node(hmf_validation_cosmology):
     error level and are closer to the direct classic solution on average
     (the point of the higher-order options for coarse tables)."""
     import jax.numpy as jnp
-    from pinocchio_tpu.ops import tabulated
-    from pinocchio_tpu.ops.collapse import ell_classic
+    from pinocchio_jax.ops import tabulated
+    from pinocchio_jax.ops.collapse import ell_classic
     c = hmf_validation_cosmology
     tab, tab2, dv, idx_map, ampl = _small_ct(c)
     rng = np.random.default_rng(5)
@@ -160,7 +160,7 @@ def test_ct_interp_variants_agree_off_node(hmf_validation_cosmology):
 def test_ct_interp_pipeline_bicubic(hmf_validation_params,
                                     hmf_validation_cosmology):
     """ct_interp='bicubic' through run_fmax tracks the trilinear run."""
-    from pinocchio_tpu.fmax import run_fmax
+    from pinocchio_jax.fmax import run_fmax
     p = dataclasses.replace(hmf_validation_params, GridSize=32,
                             ell_model="tabulated", ct_interp="bicubic")
     p_tri = dataclasses.replace(p, ct_interp="trilinear")
@@ -175,7 +175,7 @@ def test_ct_interp_pipeline_bicubic(hmf_validation_params,
 def test_tabulated_pipeline(hmf_validation_params,
                             hmf_validation_cosmology):
     """64^3 fmax with ell_model='tabulated' tracks the classic run."""
-    from pinocchio_tpu.fmax import run_fmax
+    from pinocchio_jax.fmax import run_fmax
     p = dataclasses.replace(hmf_validation_params, GridSize=64,
                             ell_model="tabulated")
     p_classic = dataclasses.replace(p, ell_model="classic")

@@ -9,19 +9,23 @@ import os
 import numpy as np
 import pytest
 
-EXAMPLE = "/root/reference/example"
-
 # shipped catalog populations (grep -vc '^#' pinocchio.<z>.example.catalog.out)
 REF_COUNTS = {0.0: 9461, 0.5: 5919, 1.0: 2591, 2.0: 136}
 
 
 @pytest.fixture(scope="module")
-def example_run(tmp_path_factory):
-    from pinocchio_tpu.config import read_parameter_file
-    from pinocchio_tpu.run import run_pipeline
-    p = read_parameter_file(os.path.join(EXAMPLE, "parameter_file"))
-    # the full TPU-path feature set on the CPU mesh: sparse overlapped
-    # fetch + sparse RECOMPUTE segments (exact f32 wire)
+def example_dir(reference_file):
+    """The reference's shipped example run (inputs and outputs)."""
+    return os.path.dirname(reference_file("example/parameter_file"))
+
+
+@pytest.fixture(scope="module")
+def example_run(tmp_path_factory, example_dir):
+    from pinocchio_jax.config import read_parameter_file
+    from pinocchio_jax.run import run_pipeline
+    p = read_parameter_file(os.path.join(example_dir, "parameter_file"))
+    # the full accelerator-path feature set on the CPU mesh: sparse
+    # overlapped fetch + sparse RECOMPUTE segments (exact f32 wire)
     p.sparse_transfer = True
     p.transfer_f16 = False
     out = str(tmp_path_factory.mktemp("example_e2e"))
@@ -43,10 +47,10 @@ def test_example_halo_counts(example_run):
             (snap.z, ngood, ref)
 
 
-def test_example_mf_vs_shipped(example_run):
+def test_example_mf_vs_shipped(example_run, example_dir):
     p, _, out = example_run
     mine = np.loadtxt(os.path.join(out, "pinocchio.0.0000.example.mf.out"))
-    ref = np.loadtxt(os.path.join(EXAMPLE,
+    ref = np.loadtxt(os.path.join(example_dir,
                                   "pinocchio.0.0000.example.mf.out"))
     n = min(len(mine), len(ref))
     cm, cr = mine[:n, 4], ref[:n, 4]
@@ -66,12 +70,12 @@ def test_example_plc_populated(example_run):
     assert os.path.exists(os.path.join(out, "pinocchio.example.nz.out"))
 
 
-def test_example_histories_size(example_run):
+def test_example_histories_size(example_run, example_dir):
     _, res, out = example_run
     path = os.path.join(out, "pinocchio.example.histories.out")
     with open(path) as fd:
         rows = sum(1 for line in fd if not line.startswith("#"))
-    with open(os.path.join(EXAMPLE,
+    with open(os.path.join(example_dir,
                            "pinocchio.example.histories.out")) as fd:
         ref_rows = sum(1 for line in fd if not line.startswith("#"))
     assert abs(rows / ref_rows - 1.0) < 0.05

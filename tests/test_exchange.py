@@ -11,8 +11,8 @@ import pytest
 
 @pytest.fixture(scope="module")
 def sharded64(hmf_validation_params, hmf_validation_cosmology):
-    from pinocchio_tpu.parallel import pfft
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.parallel import pfft
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
     p = dataclasses.replace(hmf_validation_params, GridSize=64)
     res = run_fmax_distributed(p, hmf_validation_cosmology,
                                pfft.make_pencil_mesh(8), verbose=False)
@@ -20,9 +20,9 @@ def sharded64(hmf_validation_params, hmf_validation_cosmology):
 
 
 def _geoms(params, cosmo, ntasks):
-    from pinocchio_tpu.fragment.subbox import (choose_nbox,
+    from pinocchio_jax.fragment.subbox import (choose_nbox,
                                                subbox_geometries)
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
+    from pinocchio_jax.io.catalogs import largest_halo_mass
     largest = largest_halo_mass(params, cosmo)
     nbox = choose_nbox(params, cosmo, largest, ntasks)
     return subbox_geometries(params, cosmo, largest, nbox), nbox
@@ -49,7 +49,7 @@ def _expected_host_set(params, res, geoms, nhosts, h):
 @pytest.mark.parametrize("nhosts", [2, 4])
 def test_exchange_matches_bruteforce(sharded64, hmf_validation_cosmology,
                                      nhosts):
-    from pinocchio_tpu.parallel.exchange import exchange_products
+    from pinocchio_jax.parallel.exchange import exchange_products
     p, res = sharded64
     geoms, _ = _geoms(p, hmf_validation_cosmology, 4)
     mesh = res.products.Fmax.sharding.mesh
@@ -69,8 +69,8 @@ def test_exchange_slab_mesh(sharded64, hmf_validation_params,
                             hmf_validation_cosmology):
     """The slab (1-D mesh) routing path delivers the same sets."""
     import jax
-    from pinocchio_tpu.parallel import pfft
-    from pinocchio_tpu.parallel.exchange import exchange_products
+    from pinocchio_jax.parallel import pfft
+    from pinocchio_jax.parallel.exchange import exchange_products
     p, res = sharded64
     geoms, _ = _geoms(p, hmf_validation_cosmology, 4)
     mesh = pfft.make_mesh(8)
@@ -95,8 +95,8 @@ def test_multibox_exchange_catalog_union(sharded64,
                                          hmf_validation_cosmology):
     """Host-sliced fragmentation fed by the exchange must reproduce the
     single-process multibox catalogs exactly."""
-    from pinocchio_tpu.fragment.subbox import run_fragmentation_multibox
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
+    from pinocchio_jax.fragment.subbox import run_fragmentation_multibox
+    from pinocchio_jax.io.catalogs import largest_halo_mass
     p, res = sharded64
     c = hmf_validation_cosmology
     largest = largest_halo_mass(p, c)
@@ -125,11 +125,11 @@ def test_exchange_routes_recompute_segments(hmf_validation_params,
     """RECOMPUTE_DISPLACEMENTS on a deferred-segment distributed run: the
     exchange routes every segment's displacement rows, and host-sliced
     fragmentation matches the single-process run exactly."""
-    from pinocchio_tpu.parallel import pfft
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
-    from pinocchio_tpu.parallel.exchange import exchange_products
-    from pinocchio_tpu.fragment.subbox import run_fragmentation_multibox
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
+    from pinocchio_jax.parallel import pfft
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.parallel.exchange import exchange_products
+    from pinocchio_jax.fragment.subbox import run_fragmentation_multibox
+    from pinocchio_jax.io.catalogs import largest_halo_mass
 
     p = dataclasses.replace(hmf_validation_params, GridSize=64,
                             recompute_displacements=True,
@@ -176,9 +176,9 @@ def test_two_turn_exchange_catalog_union(sharded64,
     sweeps -> sphere-selected turn-1) must reproduce the local two-turn
     multibox catalogs exactly while shipping fewer particle-copies than
     the single-turn padded-volume exchange."""
-    from pinocchio_tpu.fragment.subbox import run_fragmentation_multibox
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
-    from pinocchio_tpu.parallel.exchange import exchange_products
+    from pinocchio_jax.fragment.subbox import run_fragmentation_multibox
+    from pinocchio_jax.io.catalogs import largest_halo_mass
+    from pinocchio_jax.parallel.exchange import exchange_products
     p, res = sharded64
     c = hmf_validation_cosmology
     largest = largest_halo_mass(p, c)
@@ -233,7 +233,8 @@ def test_exchange_scaling_16_hosts():
     env.pop("JAX_PLATFORMS", None)
     r = subprocess.run(
         [sys.executable, "scripts/exp_exchange_scaling.py", "--grid", "64"],
-        cwd="/root/repo", env=env, capture_output=True, text=True,
+        cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        env=env, capture_output=True, text=True,
         timeout=1200)
     assert r.returncode == 0, r.stdout + r.stderr
     line = [ln for ln in r.stdout.splitlines()

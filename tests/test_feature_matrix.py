@@ -7,15 +7,6 @@ import dataclasses
 import pytest
 
 
-def _camb_files():
-    """The shipped example's CAMB table set (READ_PK_TABLE runs)."""
-    base = "/root/reference/example/CAMBFiles"
-    return dict(FileWithInputSpectrum="CAMBTable",
-                CAMBMatterFile=f"{base}/pk_cb",
-                CAMBRedshiftsFile=f"{base}/redshifts.dat",
-                HubbleTableFile=f"{base}/hubble.dat")
-
-
 # the full 6-configuration matrix of the reference's
 # tests/only_HMF_tests (SURVEY.md §4.3)
 @pytest.mark.parametrize("name,over", [
@@ -24,15 +15,19 @@ def _camb_files():
     ("RECOMPUTE_and_SCALE_DEP", dict(recompute_displacements=True,
                                      scale_dependent=True)),
     ("READ_PK_TABLE_and_SCALE_DEP", dict(scale_dependent=True,
-                                         **_camb_files())),
+                                         camb=True)),
     ("MOD_GRAV_and_SCALE_DEP", dict(mod_grav_fr=True, fr0=1e-7,
                                     scale_dependent=True)),
     ("MOD_GRAV_and_SCALE_DEP_and_RECOMPUTE",
      dict(mod_grav_fr=True, fr0=1e-7, scale_dependent=True,
           recompute_displacements=True)),
 ])
-def test_feature_config_runs(hmf_validation_params, name, over):
-    from pinocchio_tpu.run import run_pipeline
+def test_feature_config_runs(hmf_validation_params, name, over, request):
+    from pinocchio_jax.run import run_pipeline
+    over = dict(over)
+    if over.pop("camb", False):
+        # the table set of the LCDM cosmology (scripts/make_camb_inputs.py)
+        over.update(request.getfixturevalue("camb_tables"))
     p = dataclasses.replace(hmf_validation_params, GridSize=64, **over)
     res = run_pipeline(p, verbose=False, write_outputs=False)
     snap = res["frag"].catalogs[-1]

@@ -10,7 +10,7 @@ import pytest
 
 
 def test_smoothing_ladder(hmf_validation_params, hmf_validation_cosmology):
-    from pinocchio_tpu.fmax import Smoothing
+    from pinocchio_jax.fmax import Smoothing
     sm = Smoothing.build(hmf_validation_params, hmf_validation_cosmology)
     # reference log: 9 radii, R = 20.636 ... 0.259, 0
     assert sm.n == 9
@@ -29,9 +29,9 @@ def test_sigma_self_consistency(fmax_result):
         assert abs(got_s / exp_s - 1.0) < 0.25, (i, exp_s, got_s)
 
 
-def test_fmax_pdf_vs_reference(fmax_result):
-    ref = np.loadtxt("/root/reference/HMF_Validation/"
-                     "pinocchio.test.FmaxPDF.out")[:, 2]
+def test_fmax_pdf_vs_reference(fmax_result, reference_file):
+    ref = np.loadtxt(reference_file(
+        "HMF_Validation/pinocchio.test.FmaxPDF.out"))[:, 2]
     F = np.asarray(fmax_result.products.Fmax).ravel()
     xF = np.clip((F * 10).astype(int), 0, 209)
     mine = np.bincount(xF, minlength=210).astype(float)
@@ -79,29 +79,32 @@ def test_displacement_field_statistics(fmax_result,
     assert np.sqrt((v2 ** 2).mean()) < 0.5 * rms_axis
 
 
-def test_matmul_hessian_matches_fft(hmf_validation_params,
-                                    hmf_validation_cosmology):
-    """The all-matmul Hessian transform (derivatives.use_mm, the TPU
-    collapse-cycle fast path) equals the FFT path to round-off."""
-    import jax
+@pytest.mark.parametrize("R", [0.0, 2.0])
+def test_hessian_matches_float64_reference(hmf_validation_params,
+                                           hmf_validation_cosmology, R):
+    """The six Hessian components of the FFT path (derivatives.
+    second_derivatives) against an independent float64 numpy transform,
+    unsmoothed and smoothed."""
+    import dataclasses
+
     import jax.numpy as jnp
-    from pinocchio_tpu.grids import Grid
-    from pinocchio_tpu.ic import generate_kdensity
-    from pinocchio_tpu.ops import derivatives
+    from pinocchio_jax.grids import Grid
+    from pinocchio_jax.ic import generate_kdensity
+    from pinocchio_jax.ops import derivatives
 
     N = 32
-    import dataclasses
     p = dataclasses.replace(hmf_validation_params, GridSize=N)
     grid = Grid(N=N, BoxSize=p.BoxSize_htrue)
     kden = generate_kdensity(grid, hmf_validation_cosmology, p.RandomSeed)
-    R = jnp.float32(2.0)
-    ref = np.asarray(derivatives.second_derivatives(kden, R, N))
-    derivatives._MM_FORCE = True
-    try:
-        mm = np.asarray(jax.jit(
-            derivatives._second_derivatives_mm,
-            static_argnames=("N",))(kden, R, N))
-    finally:
-        derivatives._MM_FORCE = None
-    scale = np.abs(ref).max()
-    assert np.abs(mm - ref).max() / scale < 1e-4
+    sd = np.asarray(derivatives.second_derivatives(kden, jnp.float32(R), N))
+    k = 2.0 * np.pi / N * np.fft.fftfreq(N, 1.0 / N)
+    kz = 2.0 * np.pi / N * np.arange(N // 2 + 1)
+    kv = (k[:, None, None], k[None, :, None], kz[None, None, :])
+    k2 = kv[0] ** 2 + kv[1] ** 2 + kv[2] ** 2
+    with np.errstate(divide="ignore", invalid="ignore"):
+        w = np.where(k2 > 0, np.exp(-0.5 * k2 * R * R) / k2, 0.0)
+    base = np.asarray(kden).astype(np.complex128) * w
+    for c, (a, b) in enumerate(derivatives.SECOND_DERIV_PAIRS):
+        ref = np.fft.irfftn(base * kv[a] * kv[b], s=(N, N, N),
+                            axes=(0, 1, 2))
+        assert np.abs(sd[c] - ref).max() / np.abs(ref).max() < 1e-5, c

@@ -13,7 +13,7 @@ import pytest
 @pytest.fixture(scope="session")
 def frag_result(hmf_validation_params, hmf_validation_cosmology,
                 fmax_result):
-    from pinocchio_tpu.fragment.driver import run_fragmentation
+    from pinocchio_jax.fragment.driver import run_fragmentation
     return run_fragmentation(hmf_validation_params,
                              hmf_validation_cosmology, fmax_result,
                              verbose=False)
@@ -52,15 +52,16 @@ def test_mass_conservation(frag_result):
 
 
 def test_mf_vs_reference(frag_result, hmf_validation_params,
-                         hmf_validation_cosmology, tmp_path):
-    from pinocchio_tpu.io import catalogs as io_cat
+                         hmf_validation_cosmology, tmp_path,
+                         reference_file):
+    from pinocchio_jax.io import catalogs as io_cat
     p = hmf_validation_params
     snap = [s for s in frag_result.catalogs if s.z == 0.0][0]
     path = io_cat.compute_mf(p, hmf_validation_cosmology, snap,
                              str(tmp_path))
     mine = np.loadtxt(path)
-    ref = np.loadtxt("/root/reference/HMF_Validation/"
-                     "pinocchio.0.0000.test.mf.out")
+    ref = np.loadtxt(reference_file(
+        "HMF_Validation/pinocchio.0.0000.test.mf.out"))
     n = min(len(mine), len(ref))
     cm, cr = mine[:n, 4], ref[:n, 4]
     good = (cm > 200) & (cr > 200)
@@ -72,7 +73,7 @@ def test_mf_vs_reference(frag_result, hmf_validation_params,
 
 
 def test_histories_structure(frag_result, hmf_validation_params, tmp_path):
-    from pinocchio_tpu.io.catalogs import build_histories
+    from pinocchio_jax.io.catalogs import build_histories
     trees = build_histories(frag_result.groups,
                             hmf_validation_params.MinHaloMass)
     ntrees = len(trees)
@@ -96,7 +97,7 @@ def test_catalog_roundtrip_binary(frag_result, hmf_validation_params,
                                   tmp_path):
     """Binary catalog must be parseable via the fortran-record layout that
     ReadPinocchio5.py expects."""
-    from pinocchio_tpu.io import catalogs as io_cat
+    from pinocchio_jax.io import catalogs as io_cat
     p = hmf_validation_params
     snap = frag_result.catalogs[0]
     import dataclasses
@@ -130,8 +131,8 @@ def test_sparse_transfer_identical(hmf_validation_params,
     reproduce the dense-transfer fragmentation bit-for-bit: the zeroed
     unselected cells are never read by the sweep."""
     import dataclasses
-    from pinocchio_tpu.fmax import fetch_products_host
-    from pinocchio_tpu.fragment.driver import run_fragmentation
+    from pinocchio_jax.fmax import fetch_products_host
+    from pinocchio_jax.fragment.driver import run_fragmentation
 
     p_dense = dataclasses.replace(hmf_validation_params,
                                   sparse_transfer=False,
@@ -173,13 +174,14 @@ def test_overlapped_pending_fetch(hmf_validation_params,
     SparseProducts must equal the post-hoc compaction of the same field
     and drive an identical fragmentation."""
     import dataclasses
-    from pinocchio_tpu.fmax import fetch_products_host, run_fmax
-    from pinocchio_tpu.fragment.driver import run_fragmentation
+    from pinocchio_jax.fmax import fetch_products_host, run_fmax
+    from pinocchio_jax.fragment.driver import run_fragmentation
 
     p = dataclasses.replace(hmf_validation_params, sparse_transfer=True,
                             transfer_f16=False)
     res = run_fmax(p, hmf_validation_cosmology, verbose=False)
-    assert res.pending_fetch is not None
+    pf = res.pending_fetch
+    assert pf is not None
     res = fetch_products_host(p, res)
     assert res.pending_fetch is None
     sp = res.host_products
@@ -193,6 +195,11 @@ def test_overlapped_pending_fetch(hmf_validation_params,
     for k, v in res.products.vel.items():
         v0 = np.asarray(v).reshape(3, -1)
         assert np.array_equal(sp.vel[k][o], v0[:, sel].T)
+    # the transfer log counts every copied byte: idx + F, then the rows
+    log = pf.log.summary()
+    nkeys = len(res.products.vel)
+    assert log["bytes"] == pf.cap * (4 + 4) + nkeys * pf.cap * 3 * 4
+    assert log["busy_s"] > 0.0 and log["window_s"] > 0.0
 
     # catalogs identical to the dense path over the SAME product arrays
     p_dense = dataclasses.replace(hmf_validation_params,
@@ -213,7 +220,7 @@ def test_sparse_transfer_multibox(hmf_validation_params,
     """Sparse host products + sub-box membership (coordinate wrap) gives
     the same catalogs as the dense sub-domain extraction."""
     import dataclasses
-    from pinocchio_tpu.fragment.subbox import run_fragmentation_multibox
+    from pinocchio_jax.fragment.subbox import run_fragmentation_multibox
 
     p_dense = dataclasses.replace(hmf_validation_params,
                                   sparse_transfer=False,
@@ -241,8 +248,8 @@ def test_sparse_recompute_segments(hmf_validation_params,
     per-segment stacks cross as needed rows (seg_sparse) and the sweep's
     segment reconstruction matches the dense-segment run exactly."""
     import dataclasses
-    from pinocchio_tpu.fmax import fetch_products_host, run_fmax
-    from pinocchio_tpu.fragment.driver import run_fragmentation
+    from pinocchio_jax.fmax import fetch_products_host, run_fmax
+    from pinocchio_jax.fragment.driver import run_fragmentation
 
     base = dataclasses.replace(hmf_validation_params, GridSize=64,
                                recompute_displacements=True,
@@ -274,8 +281,8 @@ def test_sparse_recompute_segments_subbox(hmf_validation_params,
     the rowmap (it indexed particles directly and silently read wrong
     rows whenever sub-box rows != sparse-table rows)."""
     import dataclasses
-    from pinocchio_tpu.fmax import fetch_products_host, run_fmax
-    from pinocchio_tpu.fragment.subbox import run_fragmentation_multibox
+    from pinocchio_jax.fmax import fetch_products_host, run_fmax
+    from pinocchio_jax.fragment.subbox import run_fragmentation_multibox
 
     base = dataclasses.replace(hmf_validation_params, GridSize=64,
                                recompute_displacements=True,
@@ -303,8 +310,8 @@ def test_dense_segments_with_sparse_products_subbox(
     products must fall back to per-box displacement copies — the rowmap
     convention cannot cover per-box [n,3] segment tables."""
     import dataclasses
-    from pinocchio_tpu.fmax import fetch_products_host, run_fmax
-    from pinocchio_tpu.fragment.subbox import run_fragmentation_multibox
+    from pinocchio_jax.fmax import fetch_products_host, run_fmax
+    from pinocchio_jax.fragment.subbox import run_fragmentation_multibox
 
     base = dataclasses.replace(hmf_validation_params, GridSize=64,
                                recompute_displacements=True,
@@ -338,9 +345,9 @@ def test_streaming_watermark_gates_sweep(hmf_validation_params,
     multibox so two concurrent sweeps share one watermark."""
     import dataclasses
     import time
-    from pinocchio_tpu import fmax as fmax_mod
-    from pinocchio_tpu.fmax import run_fmax
-    from pinocchio_tpu.fragment.subbox import run_fragmentation_multibox
+    from pinocchio_jax import fmax as fmax_mod
+    from pinocchio_jax.fmax import run_fmax
+    from pinocchio_jax.fragment.subbox import run_fragmentation_multibox
 
     base = dataclasses.replace(hmf_validation_params, GridSize=64,
                                transfer_f16=False)

@@ -6,8 +6,8 @@ import pytest
 
 @pytest.fixture(scope="module")
 def grid_and_field(hmf_validation_cosmology, hmf_validation_params):
-    from pinocchio_tpu.grids import Grid
-    from pinocchio_tpu.ic import generate_kdensity
+    from pinocchio_jax.grids import Grid
+    from pinocchio_jax.ic import generate_kdensity
     p = hmf_validation_params
     g = Grid(N=64, BoxSize=p.BoxSize_htrue)
     kd = np.asarray(generate_kdensity(g, hmf_validation_cosmology,
@@ -49,7 +49,7 @@ def test_nyquist_and_dc_empty(grid_and_field):
 def test_realized_power_spectrum(grid_and_field, hmf_validation_cosmology):
     """Binned |delta_k|^2 * V / N^6 must track P(k) (GenIC contract)."""
     g, kd = grid_and_field
-    from pinocchio_tpu.grids import mode_radius_sq
+    from pinocchio_jax.grids import mode_radius_sq
     N = g.N
     V = g.BoxSize ** 3
     m2 = mode_radius_sq(N)
@@ -72,8 +72,8 @@ def test_realized_power_spectrum(grid_and_field, hmf_validation_cosmology):
 
 def test_fixed_ic_amplitude(hmf_validation_cosmology, hmf_validation_params):
     """FixedIC: |delta| = sqrt(P) exactly (no Rayleigh scatter)."""
-    from pinocchio_tpu.grids import Grid, mode_radius_sq
-    from pinocchio_tpu.ic import generate_kdensity
+    from pinocchio_jax.grids import Grid, mode_radius_sq
+    from pinocchio_jax.ic import generate_kdensity
     p = hmf_validation_params
     g = Grid(N=32, BoxSize=p.BoxSize_htrue)
     kd = np.asarray(generate_kdensity(g, hmf_validation_cosmology,
@@ -88,8 +88,8 @@ def test_fixed_ic_amplitude(hmf_validation_cosmology, hmf_validation_params):
 
 def test_paired_ic_opposite_phase(hmf_validation_cosmology,
                                   hmf_validation_params):
-    from pinocchio_tpu.grids import Grid
-    from pinocchio_tpu.ic import generate_kdensity
+    from pinocchio_jax.grids import Grid
+    from pinocchio_jax.ic import generate_kdensity
     p = hmf_validation_params
     g = Grid(N=32, BoxSize=p.BoxSize_htrue)
     a = np.asarray(generate_kdensity(g, hmf_validation_cosmology, 1))

@@ -45,7 +45,7 @@ def _irfft(a, N):
 @pytest.fixture(scope="module")
 def oracle_run(hmf_validation_params, hmf_validation_cosmology):
     """Small fmax run + its host-side delta(k) for the numpy chains."""
-    from pinocchio_tpu.fmax import run_fmax
+    from pinocchio_jax.fmax import run_fmax
     p = dataclasses.replace(hmf_validation_params, GridSize=64)
     res = run_fmax(p, hmf_validation_cosmology, verbose=False)
     kden = np.asarray(res.kdensity).astype(np.complex128)

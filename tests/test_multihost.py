@@ -4,15 +4,20 @@ fetch + sub-box ownership, unit-tested with a mocked cluster on the
 the initialize call)."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
 
+from pinocchio_jax.config import HMF_VALIDATION
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 
 @pytest.fixture(scope="session")
 def sharded_run(hmf_validation_params, hmf_validation_cosmology):
-    from pinocchio_tpu.parallel import pfft
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.parallel import pfft
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
     p = dataclasses.replace(hmf_validation_params, GridSize=64)
     res = run_fmax_distributed(p, hmf_validation_cosmology,
                                pfft.make_pencil_mesh(8), verbose=False)
@@ -20,7 +25,7 @@ def sharded_run(hmf_validation_params, hmf_validation_cosmology):
 
 
 def test_initialize_cluster_single_process():
-    from pinocchio_tpu.parallel.multihost import initialize_cluster
+    from pinocchio_jax.parallel.multihost import initialize_cluster
     hid, n = initialize_cluster(verbose=False)      # no-op path
     assert (hid, n) == (0, 1)
 
@@ -28,7 +33,7 @@ def test_initialize_cluster_single_process():
 def test_fetch_local_sparse_full_equals_gather(sharded_run):
     """fetch_local_sparse with no filter must equal the needed-particle
     set of the global gather."""
-    from pinocchio_tpu.parallel.multihost import fetch_local_sparse
+    from pinocchio_jax.parallel.multihost import fetch_local_sparse
     p, res = sharded_run
     sp = fetch_local_sparse(p, res, f16=False)
     F = np.asarray(res.products.Fmax).ravel()
@@ -43,7 +48,7 @@ def test_mocked_two_host_union(sharded_run):
     """Two mocked hosts (device id parity) must partition the needed set
     exactly: union == full fetch, intersection empty."""
     import jax
-    from pinocchio_tpu.parallel.multihost import fetch_local_sparse
+    from pinocchio_jax.parallel.multihost import fetch_local_sparse
     p, res = sharded_run
     full = fetch_local_sparse(p, res, f16=False)
     parts = []
@@ -60,10 +65,10 @@ def test_mocked_two_host_union(sharded_run):
 
 def test_host_subboxes_partition(hmf_validation_params,
                                  hmf_validation_cosmology):
-    from pinocchio_tpu.fragment.subbox import (choose_nbox,
+    from pinocchio_jax.fragment.subbox import (choose_nbox,
                                                subbox_geometries)
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
-    from pinocchio_tpu.parallel.multihost import host_subboxes
+    from pinocchio_jax.io.catalogs import largest_halo_mass
+    from pinocchio_jax.parallel.multihost import host_subboxes
     p, c = hmf_validation_params, hmf_validation_cosmology
     largest = largest_halo_mass(p, c)
     geoms = subbox_geometries(p, c, largest, choose_nbox(p, c, largest, 8))
@@ -78,9 +83,9 @@ def test_mocked_multihost_catalog_union(hmf_validation_params,
                                         fmax_result):
     """Running the multibox fragmentation as two host-slices must yield
     the same halo set as the single-process multibox run."""
-    from pinocchio_tpu.fragment.subbox import (choose_nbox,
+    from pinocchio_jax.fragment.subbox import (choose_nbox,
                                                run_fragmentation_multibox)
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
+    from pinocchio_jax.io.catalogs import largest_halo_mass
     p, c = hmf_validation_params, hmf_validation_cosmology
     largest = largest_halo_mass(p, c)
     nbox = choose_nbox(p, c, largest, 4)
@@ -126,13 +131,13 @@ def test_real_two_process_cluster(tmp_path):
     procs = []
     for h in range(2):
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "pinocchio_tpu.run",
-             "/root/reference/HMF_Validation/parameter_file",
+            [sys.executable, "-m", "pinocchio_jax.run",
+             HMF_VALIDATION,
              "--norad", "--grid", "64", "--subboxes", "2", "--chips", "8",
              "--platform", "cpu", "--hosts", "2", "--host-id", str(h),
              "--coordinator", f"localhost:{port}",
              "--outdir", str(multi)],
-            cwd="/root/repo", env=env,
+            cwd=REPO, env=env,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     outs = []
     for h, pr in enumerate(procs):
@@ -144,16 +149,15 @@ def test_real_two_process_cluster(tmp_path):
 
     # the same configuration in-process, single host, same 8-device mesh
     import dataclasses
-    from pinocchio_tpu.config import read_parameter_file
-    from pinocchio_tpu.run import run_pipeline
-    p = read_parameter_file("/root/reference/HMF_Validation/parameter_file",
-                            norad=True)
+    from pinocchio_jax.config import read_parameter_file
+    from pinocchio_jax.run import run_pipeline
+    p = read_parameter_file(HMF_VALIDATION, norad=True)
     p = dataclasses.replace(p, GridSize=64, subbox_tasks=2)
     single = tmp_path / "single"
     os.makedirs(single)
     run_pipeline(p, outdir=str(single), verbose=False, chips=8)
 
-    from pinocchio_tpu.io import readers
+    from pinocchio_jax.io import readers
     base = "pinocchio.0.0000.test.catalog.out"
     a = readers.read_catalog(str(single / base))
     chunks = [readers.read_catalog(str(multi / f"{base}.{h}"))
@@ -172,7 +176,7 @@ def test_merge_chunks_tool(hmf_validation_params, tmp_path):
     import dataclasses
     import importlib.util
     import os
-    from pinocchio_tpu.run import run_pipeline
+    from pinocchio_jax.run import run_pipeline
 
     p = dataclasses.replace(hmf_validation_params, GridSize=64,
                             output_z=(0.0,), CatalogInAscii=False,
@@ -206,7 +210,7 @@ def test_merge_chunks_tool(hmf_validation_params, tmp_path):
 
     # the tool reads the run's parameter file: give it one that matches
     # this test's overrides (GridSize 64, single z=0 output)
-    src = open("/root/reference/HMF_Validation/parameter_file").read()
+    src = open(HMF_VALIDATION).read()
     src = src.replace("GridSize               128",
                       "GridSize               64")
     pf = tmp_path / "parameter_file"
@@ -214,12 +218,12 @@ def test_merge_chunks_tool(hmf_validation_params, tmp_path):
     (tmp_path / "outputs").write_text("0.0\n")
 
     spec = importlib.util.spec_from_file_location(
-        "merge_chunks", "/root/repo/scripts/merge_chunks.py")
+        "merge_chunks", os.path.join(REPO, "scripts", "merge_chunks.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod.main([str(pf), "--dir", str(multi)])
 
-    from pinocchio_tpu.io import readers
+    from pinocchio_jax.io import readers
     a = readers.read_catalog(str(single / "pinocchio.0.0000.test"
                                           ".catalog.out"))
     b = readers.read_catalog(str(multi / "pinocchio.0.0000.test"

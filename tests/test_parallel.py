@@ -11,8 +11,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pinocchio_tpu.parallel import pfft
-from pinocchio_tpu.parallel.driver import demo_step
+from pinocchio_jax.parallel import pfft
+from pinocchio_jax.parallel.driver import demo_step
 
 N = 32
 
@@ -56,7 +56,7 @@ def test_roundtrip_and_forward(name, mesh):
 @pytest.mark.parametrize("name,mesh", _meshes(), ids=lambda v: v
                          if isinstance(v, str) else "")
 def test_second_derivatives_match_single_chip(name, mesh):
-    from pinocchio_tpu.ops import derivatives
+    from pinocchio_jax.ops import derivatives
     decomp = pfft.make_decomp(mesh, N)
     rng = np.random.default_rng(3)
     Nh = N // 2 + 1
@@ -80,10 +80,10 @@ def test_second_derivatives_match_single_chip(name, mesh):
 
 @pytest.fixture(scope="module")
 def small_setup():
-    from pinocchio_tpu.config import read_parameter_file
-    from pinocchio_tpu.cosmology import Cosmology
-    p = read_parameter_file("/root/reference/HMF_Validation/parameter_file",
-                            norad=True, plc_enabled=False)
+    from pinocchio_jax.config import read_parameter_file
+    from pinocchio_jax.cosmology import Cosmology
+    from pinocchio_jax.config import HMF_VALIDATION
+    p = read_parameter_file(HMF_VALIDATION, norad=True, plc_enabled=False)
     p.GridSize = N
     p.BoxSize = float(N)
     return p, Cosmology(p)
@@ -93,9 +93,9 @@ def test_distributed_kdensity_bitexact(small_setup):
     """The sharded IC generator realizes the SAME field as single-chip for
     any mesh: the reference's seed-plane task-count invariance
     (GenIC.c:482-1143), here exact because threefry is counter-based."""
-    from pinocchio_tpu.grids import Grid
-    from pinocchio_tpu.ic import generate_kdensity
-    from pinocchio_tpu.parallel.driver import build_kdensity
+    from pinocchio_jax.grids import Grid
+    from pinocchio_jax.ic import generate_kdensity
+    from pinocchio_jax.parallel.driver import build_kdensity
     p, cosmo = small_setup
     grid = Grid(N=N, BoxSize=p.BoxSize_htrue)
     ref = np.asarray(generate_kdensity(grid, cosmo, p.RandomSeed))
@@ -114,8 +114,8 @@ def test_run_fmax_distributed_matches_single_chip(small_setup):
     branchy ellipsoid solve may flip a handful of near-degenerate cells
     when the FFT summation order changes, as with the reference's MPI
     decompositions)."""
-    from pinocchio_tpu.fmax import run_fmax
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.fmax import run_fmax
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
     p, cosmo = small_setup
     ref = run_fmax(p, cosmo, verbose=False)
     F_ref = np.asarray(ref.products.Fmax)
@@ -138,8 +138,8 @@ def test_run_fmax_distributed_matches_single_chip(small_setup):
 def test_run_fmax_distributed_volume_matches_single_chip(small_setup):
     """Full sharded fmax on the 3-D volumes mesh (2x2x2: three subgroup
     all_to_alls per transform) vs the single-chip path."""
-    from pinocchio_tpu.fmax import run_fmax
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.fmax import run_fmax
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
     p, cosmo = small_setup
     ref = run_fmax(p, cosmo, verbose=False)
     F_ref = np.asarray(ref.products.Fmax)
@@ -161,8 +161,8 @@ def test_distributed_tabulated_matches_single_chip(small_setup):
     vs the single-chip tabulated path: same tables, same lookup per
     shard."""
     import dataclasses
-    from pinocchio_tpu.fmax import run_fmax
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.fmax import run_fmax
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
     p, cosmo = small_setup
     p = dataclasses.replace(p, ell_model="tabulated")
     ref = run_fmax(p, cosmo, verbose=False)
@@ -180,8 +180,8 @@ def test_distributed_recompute_segments(small_setup):
     """RECOMPUTE_DISPLACEMENTS multi-chip: one displacement set per output
     redshift, each matching the single-chip segment."""
     import dataclasses
-    from pinocchio_tpu.fmax import run_fmax
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.fmax import run_fmax
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
     p, cosmo = small_setup
     p = dataclasses.replace(p, recompute_displacements=True,
                             transfer_f16=False)
@@ -196,18 +196,19 @@ def test_distributed_recompute_segments(small_setup):
             assert np.abs(a - b).max() < 1e-4 * max(np.abs(a).max(), 1e-3)
 
 
-def test_distributed_scaledep_matches_single_chip():
+def test_distributed_scaledep_matches_single_chip(hmf_validation_params,
+                                                 camb_tables):
     """Sharded fmax with scale-dependent growth (CAMB-table cosmology):
     per-radius inverse-growth packs and per-mode growth tables in the
     displacement stage, vs the single-chip path."""
-    from pinocchio_tpu.config import read_parameter_file
-    from pinocchio_tpu.cosmology import Cosmology
-    from pinocchio_tpu.fmax import Smoothing, run_fmax
-    from pinocchio_tpu.io import catalogs as io_cat
-    from pinocchio_tpu.parallel.driver import run_fmax_distributed
-    from pinocchio_tpu.scaledep import set_scaledep_gm
-    p = read_parameter_file("/root/reference/example/parameter_file",
-                            plc_enabled=False)
+    import dataclasses
+    from pinocchio_jax.cosmology import Cosmology
+    from pinocchio_jax.fmax import Smoothing, run_fmax
+    from pinocchio_jax.io import catalogs as io_cat
+    from pinocchio_jax.parallel.driver import run_fmax_distributed
+    from pinocchio_jax.scaledep import set_scaledep_gm
+    p = dataclasses.replace(hmf_validation_params, **camb_tables)
+    p.validate()
     p.GridSize = N
     p.BoxSize = float(N) * 4.0
     p.recompute_displacements = False

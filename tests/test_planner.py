@@ -13,7 +13,7 @@ def test_collapsed_fraction_calibration(hmf_validation_params,
                                         fmax_result):
     """The planner's collapsed-fraction forecast must bound the measured
     fraction from above within ~10% (it drives the host memory budget)."""
-    from pinocchio_tpu.planner import collapsed_fraction
+    from pinocchio_jax.planner import collapsed_fraction
     frac = collapsed_fraction(hmf_validation_params,
                               hmf_validation_cosmology)
     F = np.asarray(fmax_result.products.Fmax)
@@ -25,7 +25,7 @@ def test_plan_1024_prints_map(hmf_validation_params,
                               hmf_validation_cosmology, capsys):
     """A 1024^3 plan must produce the full per-array map without
     allocating anything."""
-    from pinocchio_tpu import planner
+    from pinocchio_jax import planner
     p = dataclasses.replace(hmf_validation_params, GridSize=1024)
     r = planner.plan(p, n_chips=8, verbose=True,
                      cosmo=hmf_validation_cosmology)
@@ -41,8 +41,8 @@ def test_budget_abort_preflight(hmf_validation_params,
                                 hmf_validation_cosmology):
     """A too-small MaxMem budget must abort BEFORE any FFT/allocation,
     with the memory map in the message (allocations.c:317-324)."""
-    from pinocchio_tpu.planner import MemoryPlanError
-    from pinocchio_tpu.run import run_pipeline
+    from pinocchio_jax.planner import MemoryPlanError
+    from pinocchio_jax.run import run_pipeline
     p = dataclasses.replace(hmf_validation_params, GridSize=512, MaxMem=64)
     with pytest.raises(MemoryPlanError) as ei:
         run_pipeline(p, verbose=False, write_outputs=False)
@@ -52,7 +52,7 @@ def test_budget_abort_preflight(hmf_validation_params,
 
 def test_budget_bytes_per_particle(hmf_validation_params,
                                    hmf_validation_cosmology):
-    from pinocchio_tpu.planner import MemoryPlanError, enforce_budget
+    from pinocchio_jax.planner import MemoryPlanError, enforce_budget
     p = dataclasses.replace(hmf_validation_params, MaxMemPerParticle=5.0)
     with pytest.raises(MemoryPlanError) as ei:
         enforce_budget(p, cosmo=hmf_validation_cosmology, verbose=False)
@@ -63,7 +63,7 @@ def test_budget_passes_for_valid_run(hmf_validation_params,
                                      hmf_validation_cosmology):
     """The shipped HMF_Validation config (MaxMem 3600, 150 B/particle)
     must clear the pre-flight."""
-    from pinocchio_tpu.planner import enforce_budget
+    from pinocchio_jax.planner import enforce_budget
     r = enforce_budget(hmf_validation_params,
                        cosmo=hmf_validation_cosmology, verbose=False)
     assert r["fits_host"]
@@ -74,7 +74,7 @@ def test_exit_if_extra_particles(hmf_validation_params,
     """ExitIfExtraParticles semantics (fragment.c:258-283): an
     undersized MaxMemPerParticle warns by default and aborts when the
     flag is set."""
-    from pinocchio_tpu.fragment.driver import run_fragmentation
+    from pinocchio_jax.fragment.driver import run_fragmentation
     p = dataclasses.replace(hmf_validation_params, MaxMemPerParticle=20.0,
                             ExitIfExtraParticles=True)
     with pytest.raises(MemoryError) as ei:
@@ -90,7 +90,7 @@ def test_exit_if_extra_particles(hmf_validation_params,
 
 
 def test_chip_sweep(hmf_validation_params, hmf_validation_cosmology):
-    from pinocchio_tpu import planner
+    from pinocchio_jax import planner
     p = dataclasses.replace(hmf_validation_params, GridSize=512)
     rows = planner.sweep(p, hbm_gb=16.0, max_chips=8, verbose=False)
     assert [r["chips"] for r in rows] == [1, 2, 4, 8]
@@ -99,17 +99,18 @@ def test_chip_sweep(hmf_validation_params, hmf_validation_cosmology):
 
 
 def test_estimate_file_sizes(hmf_validation_params,
-                             hmf_validation_cosmology, capsys):
+                             hmf_validation_cosmology, capsys,
+                             reference_file):
     """Output-size forecaster (estimate_file_size, fragment.c:964-1065):
     an order-of-magnitude tool (it integrates the analytic fit, which
     under-counts Pinocchio's low-mass halos ~2x, exactly as the
     reference's own estimator does) — demand the right decade."""
     import os
-    from pinocchio_tpu.planner import estimate_file_sizes
+    from pinocchio_jax.planner import estimate_file_sizes
     est = estimate_file_sizes(hmf_validation_params,
                               hmf_validation_cosmology, verbose=True)
     out = capsys.readouterr().out
     assert "ESTIMATED STORAGE" in out
-    shipped = os.path.getsize(
-        "/root/reference/HMF_Validation/pinocchio.0.0000.test.catalog.out")
+    shipped = os.path.getsize(reference_file(
+        "HMF_Validation/pinocchio.0.0000.test.catalog.out"))
     assert 0.2 < est["catalogs"][0.0] / shipped < 3.0

@@ -10,7 +10,7 @@ import pytest
 
 
 def test_cone_cube_intersect_basic():
-    from pinocchio_tpu.plc import cone_and_cube_intersect
+    from pinocchio_jax.plc import cone_and_cube_intersect
     L = np.array([10.0, 10.0, 10.0])
     V = np.array([5.0, 5.0, 5.0])
     D = np.array([0.0, 0.0, 1.0])
@@ -36,8 +36,8 @@ def test_cone_cube_intersect_basic():
 @pytest.fixture(scope="session")
 def plc_run(hmf_validation_params, hmf_validation_cosmology, fmax_result):
     import dataclasses
-    from pinocchio_tpu.plc import build_plc_geometry
-    from pinocchio_tpu.fragment.driver import run_fragmentation
+    from pinocchio_jax.plc import build_plc_geometry
+    from pinocchio_jax.fragment.driver import run_fragmentation
     p = dataclasses.replace(hmf_validation_params, plc_enabled=True)
     geom = build_plc_geometry(p, hmf_validation_cosmology, verbose=False)
     res = run_fragmentation(p, hmf_validation_cosmology, fmax_result,
@@ -69,7 +69,7 @@ def test_plc_halo_properties(plc_run):
     ang = np.degrees(np.arccos(np.clip(cosang, -1, 1)))
     assert ang.max() < p.PLCAperture + 1e-3
     # distance consistent with redshift: |r - r(z)| small
-    from pinocchio_tpu.cosmology import Cosmology
+    from pinocchio_jax.cosmology import Cosmology
     pass
 
 
@@ -86,7 +86,7 @@ def test_plc_distance_redshift_consistency(plc_run,
 
 
 def test_nz_vs_analytic_prediction(plc_run, hmf_validation_cosmology):
-    from pinocchio_tpu.plc import compute_nhalos_prediction
+    from pinocchio_jax.plc import compute_nhalos_prediction
     p, geom, res = plc_run
     nz = res.plc.nz
     z_last = min(p.LastzForPLC, p.StartingzForPLC)

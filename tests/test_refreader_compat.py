@@ -1,5 +1,5 @@
 """Byte-compatibility of the binary outputs with the reference's OWN
-reader (/root/reference/scripts/ReadPinocchio5.py).
+reader (scripts/ReadPinocchio5.py of the reference checkout).
 
 Round 1 only round-tripped through this repo's readers; these tests prove
 that a reference user's analysis stack parses this engine's catalog,
@@ -15,9 +15,9 @@ import pytest
 
 
 @pytest.fixture(scope="session")
-def ref_reader():
+def ref_reader(reference_file):
     spec = importlib.util.spec_from_file_location(
-        "ReadPinocchio5", "/root/reference/scripts/ReadPinocchio5.py")
+        "ReadPinocchio5", reference_file("scripts/ReadPinocchio5.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -27,7 +27,7 @@ def ref_reader():
 def written_run(hmf_validation_params, hmf_validation_cosmology,
                 tmp_path_factory):
     """A small binary-output run with PLC + histories, written to disk."""
-    from pinocchio_tpu.run import run_pipeline
+    from pinocchio_jax.run import run_pipeline
     outdir = str(tmp_path_factory.mktemp("refcompat"))
     p = dataclasses.replace(hmf_validation_params, GridSize=64,
                             plc_enabled=True, StartingzForPLC=0.3,
@@ -45,7 +45,7 @@ def test_catalog_read_by_reference_reader(written_run, ref_reader):
     np.testing.assert_array_equal(np.asarray(cat.data["name"], np.uint64),
                                   snap.name)
     np.testing.assert_array_equal(cat.Npart, snap.mass)
-    from pinocchio_tpu.io.catalogs import convert_catalog_units
+    from pinocchio_jax.io.catalogs import convert_catalog_units
     M, q, x, v = convert_catalog_units(p, snap)
     np.testing.assert_allclose(cat.Mass, M, rtol=1e-6)
     np.testing.assert_allclose(cat.pos, x, rtol=1e-5, atol=1e-4)
@@ -59,7 +59,7 @@ def test_multifile_catalog_read_by_reference_reader(
     """NumFiles=3 chunked catalogs (collector scheme,
     write_halos.c:194-225) must be recognized and concatenated by the
     reference reader."""
-    from pinocchio_tpu.io.catalogs import write_catalog
+    from pinocchio_jax.io.catalogs import write_catalog
     p, outdir, res = written_run
     snap = res["frag"].catalogs[-1]
     p3 = dataclasses.replace(p, NumFiles=3)
@@ -79,7 +79,7 @@ def test_histories_read_by_reference_reader(written_run, ref_reader):
     p, outdir, res = written_run
     path = os.path.join(outdir, f"pinocchio.{p.RunFlag}.histories.out")
     hist = ref_reader.histories(path, silent=True)
-    from pinocchio_tpu.io.catalogs import build_histories_flat
+    from pinocchio_jax.io.catalogs import build_histories_flat
     treelen, rec = build_histories_flat(res["frag"].groups, p.MinHaloMass)
     assert hist.Ntrees == len(treelen)
     assert hist.Nbranches_tot == len(rec)
@@ -114,7 +114,7 @@ def test_plc_read_by_reference_reader(written_run, ref_reader):
 def test_own_readers_agree_with_reference_reader(written_run, ref_reader):
     """The in-repo readers and the reference reader must parse the same
     bytes identically (io/readers.py vs ReadPinocchio5 dtypes)."""
-    from pinocchio_tpu.io import readers
+    from pinocchio_jax.io import readers
     p, outdir, res = written_run
     path = os.path.join(outdir, f"pinocchio.0.0000.{p.RunFlag}.catalog.out")
     ours = readers.read_catalog(path)
@@ -128,10 +128,10 @@ def test_light_output_read_by_reference_reader(written_run, ref_reader,
                                                tmp_path):
     """-DLIGHT_OUTPUT analog: the 48-byte record is auto-detected by
     ReadPinocchio5 (its record_length==48 branch) and by io.readers."""
-    from pinocchio_tpu.io.catalogs import (CATALOG_LIGHT_DTYPE,
+    from pinocchio_jax.io.catalogs import (CATALOG_LIGHT_DTYPE,
                                            convert_catalog_units,
                                            write_catalog)
-    from pinocchio_tpu.io.readers import read_catalog
+    from pinocchio_jax.io.readers import read_catalog
     p, outdir, res = written_run
     p_light = dataclasses.replace(p, light_output=True)
     snap = res["frag"].catalogs[-1]

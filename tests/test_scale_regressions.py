@@ -22,7 +22,7 @@ def test_collapse_stats_fp64_oracle():
     (collapse_times.c:656-670 accumulates in double; our fp32 path must
     use the hierarchical _safe_mean, not a flat mean)."""
     import jax.numpy as jnp
-    from pinocchio_tpu.ops import collapse
+    from pinocchio_jax.ops import collapse
 
     rng = np.random.RandomState(7)
     N = 192
@@ -49,7 +49,7 @@ def test_collapse_stats_fp64_oracle():
     assert abs(float(d_var) / want_var - 1.0) < 1e-3
 
     # the TABULATED_CT variant shares the same stats contract
-    from pinocchio_tpu.ops import tabulated
+    from pinocchio_jax.ops import tabulated
     tab = jnp.zeros((tabulated.CT_NBINS_D, tabulated.CT_NBINS_XY,
                      tabulated.CT_NBINS_XY), jnp.float32)
     dv = jnp.asarray(tabulated.delta_sampling().astype(np.float32))
@@ -68,7 +68,7 @@ def test_collapse_stats_fp64_oracle():
 @pytest.fixture
 def _staged_threshold():
     """Lower the staged-displacement threshold for the duration of a test."""
-    from pinocchio_tpu import fmax as fmax_mod
+    from pinocchio_jax import fmax as fmax_mod
     saved = fmax_mod.STAGED_LPT_THRESHOLD
     yield fmax_mod
     fmax_mod.STAGED_LPT_THRESHOLD = saved
@@ -127,8 +127,8 @@ def test_staged_sparse_fetch(hmf_validation_params,
     their rows are gathered, and the resolved sparse products drive a
     fragmentation identical to the dense run."""
     import dataclasses
-    from pinocchio_tpu.fmax import fetch_products_host, run_fmax
-    from pinocchio_tpu.fragment.driver import run_fragmentation
+    from pinocchio_jax.fmax import fetch_products_host, run_fmax
+    from pinocchio_jax.fragment.driver import run_fragmentation
     N = 32
     base = dataclasses.replace(hmf_validation_params, GridSize=N,
                                transfer_f16=False)

@@ -5,14 +5,18 @@ pinocchio.example.scaledep.out."""
 import numpy as np
 import pytest
 
-EXAMPLE = "/root/reference/example"
+@pytest.fixture(scope="module")
+def example_dir(reference_file):
+    """The reference's shipped example run (inputs and outputs)."""
+    import os
+    return os.path.dirname(reference_file("example/parameter_file"))
 
 
 @pytest.fixture(scope="module")
-def example_cosmo():
-    from pinocchio_tpu.config import read_parameter_file
-    from pinocchio_tpu.cosmology import Cosmology
-    p = read_parameter_file(EXAMPLE + "/parameter_file")
+def example_cosmo(example_dir):
+    from pinocchio_jax.config import read_parameter_file
+    from pinocchio_jax.cosmology import Cosmology
+    p = read_parameter_file(example_dir + "/parameter_file")
     return p, Cosmology(p)
 
 
@@ -24,11 +28,11 @@ def test_feature_flags(example_cosmo):
     assert c._hubble_spline is not None
 
 
-def test_cosmology_table_vs_oracle(example_cosmo, tmp_path):
+def test_cosmology_table_vs_oracle(example_cosmo, example_dir, tmp_path):
     p, c = example_cosmo
     path = c.write_cosmology_file(str(tmp_path))
     mine = np.loadtxt(path)
-    ref = np.loadtxt(EXAMPLE + "/pinocchio.example.cosmology.out")
+    ref = np.loadtxt(example_dir + "/pinocchio.example.cosmology.out")
     rel = np.abs(mine - ref) / (np.abs(ref) + 1e-30)
     # exact columns: scale factor, distances, Om, variances, P(k)
     for col in (0, 2, 3, 4, 14, 15, 16, 18, 19):
@@ -41,9 +45,9 @@ def test_cosmology_table_vs_oracle(example_cosmo, tmp_path):
         assert rel[:, col].max() < 0.1, col
 
 
-def test_scaledep_table_vs_oracle(example_cosmo):
+def test_scaledep_table_vs_oracle(example_cosmo, example_dir):
     p, c = example_cosmo
-    ref = np.loadtxt(EXAMPLE + "/pinocchio.example.scaledep.out")
+    ref = np.loadtxt(example_dir + "/pinocchio.example.scaledep.out")
     a = ref[:, 0]
     z = 1.0 / a - 1.0
     ks = 10.0 ** (-3.0 + 0.5 * np.arange(10))
@@ -71,7 +75,7 @@ def test_hubble_table_used(example_cosmo):
 def test_segment_weight_tables(hmf_validation_params,
                                hmf_validation_cosmology):
     """w=1 at each segment's own redshift; w=0 at the previous one."""
-    from pinocchio_tpu.fragment.driver import _segment_weight_tables
+    from pinocchio_jax.fragment.driver import _segment_weight_tables
     p, c = hmf_validation_params, hmf_validation_cosmology
     tabs = _segment_weight_tables(p, c, None, n=4096)
     zs = p.output_z
@@ -89,8 +93,8 @@ def test_segment_weight_tables(hmf_validation_params,
 def test_fr_modified_gravity_growth():
     """f(R) gravity: growth enhanced below the Compton scale, GR recovered
     at k -> 0 (mu -> 1, cosmo.c:598-606)."""
-    from pinocchio_tpu.config import Params
-    from pinocchio_tpu.cosmology import Cosmology
+    from pinocchio_jax.config import Params
+    from pinocchio_jax.cosmology import Cosmology
     p = Params(mod_grav_fr=True, fr0=1e-5, scale_dependent=True,
                output_z=[0.0])
     c = Cosmology(p)

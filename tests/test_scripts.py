@@ -10,17 +10,14 @@ import numpy as np
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-REF = "/root/reference"
-EXAMPLE_CAT = os.path.join(REF, "example",
-                           "pinocchio.0.0000.example.catalog.out")
 
 
-@pytest.mark.skipif(not os.path.exists(EXAMPLE_CAT),
-                    reason="reference outputs not mounted")
-def test_fits_roundtrip(tmp_path):
+def test_fits_roundtrip(tmp_path, reference_file):
+    example_cat = reference_file(
+        "example/pinocchio.0.0000.example.catalog.out")
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "pinocchio2fits.py"),
-         EXAMPLE_CAT, "--outdir", str(tmp_path)],
+         example_cat, "--outdir", str(tmp_path)],
         capture_output=True, text=True)
     assert r.returncode == 0, r.stderr
     assert "VALID" in r.stdout and "INVALID" not in r.stdout
@@ -32,9 +29,9 @@ def test_camb_inputs_scale_dep_lcdm(tmp_path, hmf_validation_params):
     through the READ_PK_TABLE + SCALE_DEPENDENT machinery, must reproduce
     the plain LCDM growth (reference SCALE_DEP_LCDM test)."""
     import dataclasses
-    from pinocchio_tpu.cosmology import Cosmology
+    from pinocchio_jax.cosmology import Cosmology
 
-    paramfile = os.path.join(REF, "HMF_Validation", "parameter_file")
+    from pinocchio_jax.config import HMF_VALIDATION as paramfile
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "make_camb_inputs.py"),
          paramfile, "--outdir", str(tmp_path), "--nz", "60", "--norad"],
@@ -66,8 +63,8 @@ def test_camb_inputs_scale_dep_lcdm(tmp_path, hmf_validation_params):
 
 def test_geometry_parse(tmp_path, hmf_validation_params):
     import dataclasses
-    from pinocchio_tpu.cosmology import Cosmology
-    from pinocchio_tpu.plc import build_plc_geometry, write_geometry
+    from pinocchio_jax.cosmology import Cosmology
+    from pinocchio_jax.plc import build_plc_geometry, write_geometry
     sys.path.insert(0, os.path.join(REPO, "scripts"))
     from plc_geometry_plot import parse_geometry
 

@@ -13,10 +13,10 @@ import pytest
 @pytest.fixture(scope="session")
 def single_and_multi(hmf_validation_params, hmf_validation_cosmology,
                      fmax_result):
-    from pinocchio_tpu.fragment.driver import run_fragmentation
-    from pinocchio_tpu.fragment.subbox import (choose_nbox,
+    from pinocchio_jax.fragment.driver import run_fragmentation
+    from pinocchio_jax.fragment.subbox import (choose_nbox,
                                                run_fragmentation_multibox)
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
+    from pinocchio_jax.io.catalogs import largest_halo_mass
     p, c = hmf_validation_params, hmf_validation_cosmology
     single = run_fragmentation(p, c, fmax_result, verbose=False)
     largest = largest_halo_mass(p, c)

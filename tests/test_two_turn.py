@@ -17,8 +17,8 @@ import pytest
 def example_like_run(hmf_validation_params, hmf_validation_cosmology):
     """500 Mpc box at 128^3 like example/parameter_file (EH spectrum in
     place of its CAMB tables; the collapsed-fraction regime matches)."""
-    from pinocchio_tpu.cosmology import Cosmology
-    from pinocchio_tpu.fmax import run_fmax
+    from pinocchio_jax.cosmology import Cosmology
+    from pinocchio_jax.fmax import run_fmax
     p = dataclasses.replace(hmf_validation_params, BoxSize=500.0,
                             BoxInH100=False, GridSize=128)
     cosmo = Cosmology(p)
@@ -28,10 +28,10 @@ def example_like_run(hmf_validation_params, hmf_validation_cosmology):
 
 @pytest.fixture(scope="session")
 def turn_results(example_like_run):
-    from pinocchio_tpu.fragment.driver import run_fragmentation
-    from pinocchio_tpu.fragment.subbox import (choose_nbox,
+    from pinocchio_jax.fragment.driver import run_fragmentation
+    from pinocchio_jax.fragment.subbox import (choose_nbox,
                                                run_fragmentation_multibox)
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
+    from pinocchio_jax.io.catalogs import largest_halo_mass
     p, cosmo, fres = example_like_run
     largest = largest_halo_mass(p, cosmo)
     nbox = choose_nbox(p, cosmo, largest, 8)
@@ -93,8 +93,8 @@ def test_turn_policy_is_memory_driven(example_like_run, monkeypatch):
     a huge one sweeps single-turn (and classic_fragmentation forces
     single-turn regardless)."""
     import dataclasses
-    from pinocchio_tpu.fragment import subbox
-    from pinocchio_tpu.io.catalogs import largest_halo_mass
+    from pinocchio_jax.fragment import subbox
+    from pinocchio_jax.io.catalogs import largest_halo_mass
     p, cosmo, fres = example_like_run
     largest = largest_halo_mass(p, cosmo)
 
